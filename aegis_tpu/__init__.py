@@ -1,6 +1,6 @@
-"""aegis_tpu — TPU-native guitar audio → MIDI/tablature transcription framework.
+"""aegis_tpu — guitar audio → MIDI/tablature transcription framework in JAX.
 
-A ground-up JAX/XLA/Pallas redesign with the capabilities of the reference
+A ground-up JAX/XLA redesign with the capabilities of the reference
 "Aegis Engine" (avabag01-ai/spectrogram-midi): spectrogram → pitch salience →
 noise masks → trend filters → note events → MIDI, plus the surrounding
 self-verification loops, synthesis, harmony analysis, tablature and serving
@@ -22,37 +22,29 @@ __version__ = "0.1.0"
 
 import os as _os
 
-# Persistent XLA compilation cache: the fused analyze program takes minutes to
-# compile on a cold backend (remote-compile tunnels especially), milliseconds
-# to load from cache.  Opt-out via AEGIS_NO_COMPILE_CACHE=1.  Env vars are set
-# here (before any jax import — the package imports jax lazily) so every
-# entry point (engines, serve, apps, bench) benefits, not just the test suite.
-if not _os.environ.get("AEGIS_NO_COMPILE_CACHE"):
-    _os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.join(_os.path.expanduser("~"), ".cache", "aegis_tpu", "xla"),
-    )
-    _os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-    _os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1.0")
 
-    # If something (e.g. a sitecustomize) already imported jax, the env vars
-    # above were read too late — apply the same settings through jax.config.
-    import sys as _sys
+def compile_cache_dir() -> str:
+    """Where the persistent XLA compilation cache lives:
+    ``$JAX_COMPILATION_CACHE_DIR`` when set, else ``<checkout>/.jax_cache``."""
+    return _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache")
 
-    if "jax" in _sys.modules:
-        try:
-            _jax = _sys.modules["jax"]
-            if _jax.config.jax_compilation_cache_dir is None:
-                _jax.config.update(
-                    "jax_compilation_cache_dir",
-                    _os.environ["JAX_COMPILATION_CACHE_DIR"],
-                )
-                _jax.config.update(
-                    "jax_persistent_cache_min_entry_size_bytes", 0)
-                _jax.config.update(
-                    "jax_persistent_cache_min_compile_time_secs", 1.0)
-        except Exception:  # cache is an optimization; never block import
-            pass
+
+# Persistent XLA compilation cache: the fused analyze program takes seconds to
+# compile and milliseconds to load.  Set here, before any jax import (the
+# package imports jax lazily), so every entry point shares it.
+_os.environ["JAX_COMPILATION_CACHE_DIR"] = compile_cache_dir()
+_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
+_os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1.0")
+if "jax" in __import__("sys").modules:  # imported first: env was read already
+    import jax as _jax
+
+    if _jax.config.jax_compilation_cache_dir is None:
+        _jax.config.update("jax_compilation_cache_dir",
+                           _os.environ["JAX_COMPILATION_CACHE_DIR"])
+        _jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from aegis_tpu.config import AudioConfig, DetectorConfig, PyinConfig  # noqa: F401
 

@@ -148,7 +148,7 @@ def _mode_mobile(st, out_dir: str) -> None:
 def main() -> None:
     st = require_streamlit()
     st.set_page_config(page_title="Aegis Collector Studio", layout="wide")
-    st.title("📡 Aegis TPU — Collector Studio")
+    st.title("📡 Aegis — Collector Studio")
     if not have_ytdlp():
         st.warning("yt-dlp is not installed — search/download disabled. "
                    "The UI below still renders for configuration.")

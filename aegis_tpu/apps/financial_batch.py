@@ -16,7 +16,7 @@ from aegis_tpu.viz.piano_roll import events_to_svg, render_piano_roll
 def main() -> None:
     st = require_streamlit()
     st.set_page_config(page_title="Aegis Financial Studio", layout="centered")
-    st.title("🏦 Aegis TPU — Financial Studio")
+    st.title("🏦 Aegis — Financial Studio")
     st.caption("Bollinger + MACD + RSI + harmonic analysis, one-shot")
 
     upload = st.file_uploader("Audio", type=["wav", "mp3", "ogg", "flac"])

@@ -16,7 +16,7 @@ from aegis_tpu.viz.piano_roll import events_to_svg
 def main() -> None:
     st = require_streamlit()
     st.set_page_config(page_title="Aegis Financial Realtime", layout="wide")
-    st.title("📈 Aegis TPU — Financial Realtime")
+    st.title("📈 Aegis — Financial Realtime")
 
     upload = st.file_uploader("Audio", type=["wav", "mp3", "ogg", "flac"])
     if upload is None:

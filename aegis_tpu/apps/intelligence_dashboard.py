@@ -32,7 +32,7 @@ def _simulated_trends(seed: int = 20260816):
 def main() -> None:
     st = require_streamlit()
     st.set_page_config(page_title="Aegis Intelligence", layout="wide")
-    st.title("🧠 Aegis TPU — Intelligence Dashboard")
+    st.title("🧠 Aegis — Intelligence Dashboard")
 
     query = st.sidebar.text_input("Scan query", "guitar solo")
     limit = st.sidebar.slider("Scan size", 5, 50, 15)

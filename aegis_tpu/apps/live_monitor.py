@@ -52,7 +52,7 @@ def stream_in_chunks(rt, y: np.ndarray, sr: int, chunk_s: float = 2.0):
 def main() -> None:
     st = require_streamlit()
     st.set_page_config(page_title="Aegis Live Monitor", layout="wide")
-    st.title("🔴 Aegis TPU — Live Monitor")
+    st.title("🔴 Aegis — Live Monitor")
     st.caption("Simulates a live source: the upload is fed in real-time "
                "slices through the online transcribers behind "
                "/api/stream-* and `python -m aegis_tpu stream`.")

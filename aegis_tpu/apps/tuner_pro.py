@@ -21,7 +21,7 @@ from aegis_tpu.viz.piano_roll import events_to_svg
 def main() -> None:
     st = require_streamlit()
     st.set_page_config(page_title="Aegis Tuner Pro", layout="wide")
-    st.title("🎛 Aegis TPU — Tuner Pro")
+    st.title("🎛 Aegis — Tuner Pro")
 
     upload = st.file_uploader("Audio (first 30 s analyzed)",
                               type=["wav", "mp3", "ogg", "flac"])

@@ -45,7 +45,7 @@ def _archive_files() -> list:
 def main() -> None:
     st = require_streamlit()
     st.set_page_config(page_title="Aegis Tuning Center", layout="wide")
-    st.title("🎸 Aegis TPU — Tuning Center")
+    st.title("🎸 Aegis — Tuning Center")
 
     with st.sidebar:
         st.header("Input source")

@@ -1,8 +1,8 @@
 """Constant-Q spectra, chroma and onset strength on device (JAX).
 
-TPU-native front end for the driver bench configs the reference only hints
+Device front end for the driver bench configs the reference only hints
 at (BASELINE.json configs 2 and 4): a pseudo-CQT as |STFT|^2 projected onto
-a log-frequency filterbank (one MXU matmul, `core.filters.cqt_filterbank`),
+a log-frequency filterbank (one matmul, `core.filters.cqt_filterbank`),
 CQT-folded chroma (the reference used librosa.feature.chroma_cqt in
 auto_matcher.py:62-85), and a mel spectral-flux onset-strength envelope with
 librosa.onset.onset_strength semantics (dB mel, first difference, half-wave
@@ -139,7 +139,7 @@ def pick_onsets_incremental(envelope: np.ndarray, sr: int, hop_length: int,
 
     A live poll re-picked onsets over the WHOLE accumulated envelope
     (O(T) sliding windows + nanmean — the largest remaining linear term
-    of every live poll, ~4 ms at 10 minutes).  The envelope only ever
+    of every live poll at 10 minutes).  The envelope only ever
     grows (the transcribers append immutable tile rows), so when the
     global max is unchanged every window that never saw the old padded
     right edge is provably identical: positions t < S := T_prev - post

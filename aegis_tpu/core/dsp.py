@@ -1,12 +1,12 @@
 """Device DSP kernels (JAX): framing, STFT, mel spectrogram, dB, RMS.
 
-TPU-first design notes:
+Design notes:
   * Framing is a static gather (shapes fixed by input length); everything
-    downstream is fixed-shape so XLA tiles it onto the MXU/VPU.
+    downstream is fixed-shape so XLA fuses and tiles it.
   * The STFT has two interchangeable paths: ``jnp.fft.rfft`` and a real-DFT
-    matmul pair (frames @ cos, frames @ sin) that runs on the MXU — the
-    matmul path wins on TPU for these sizes because it fuses with the mel
-    projection into back-to-back MXU work.
+    matmul pair (frames @ cos, frames @ sin) that fuses with the mel
+    projection into back-to-back matmuls.  Which is faster on the GPU is
+    not measured yet.
   * The mel projection is a single (T, n_bins) @ (n_bins, n_mels) matmul.
 
 CPU oracle mirror: aegis_tpu.ref.dsp_ref (parity-tested).
@@ -31,8 +31,7 @@ def frame_signal(y: jnp.ndarray, frame_length: int, hop_length: int,
     When frame_length is a multiple of hop_length (the standard 2048/512
     case) frames are built from frame_length//hop_length contiguous
     slice+reshape views concatenated along the last axis — XLA lowers this
-    to plain copies.  The general case falls back to a gather, which is
-    dramatically slower on TPU (row-indexed gathers don't tile).
+    to plain copies.  The general case uses a row gather.
     """
     pad = frame_length // 2
     mode = "reflect" if pad_mode == "reflect" else "constant"

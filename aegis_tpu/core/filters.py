@@ -90,8 +90,8 @@ def cqt_filterbank(
 
     Triangular filters centered at the log-spaced constant-Q frequencies
     f_k = fmin * 2^(k/bpo), with neighbors as band edges (the shape of
-    librosa's pseudo-CQT response).  Applied to |STFT|^2 as one MXU matmul —
-    the TPU-native replacement for the reference's librosa chroma_cqt path
+    librosa's pseudo-CQT response).  Applied to |STFT|^2 as one matmul —
+    the device replacement for the reference's librosa chroma_cqt path
     (auto_matcher.py:51-85) and the polyphonic salience front end.
     """
     n_fft_bins = 1 + n_fft // 2
@@ -131,8 +131,8 @@ def chroma_fold(n_bins: int, bins_per_octave: int = 12,
 def dft_matrices(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
     """Real-DFT as two matmul operands: (cos, sin) with shape (n_fft, 1+n_fft//2).
 
-    power_spectrum = (frames @ cos)**2 + (frames @ sin)**2.  Keeps the STFT on
-    the MXU instead of the FFT unit when that is faster.
+    power_spectrum = (frames @ cos)**2 + (frames @ sin)**2: the STFT as two
+    matmuls, an alternative to the FFT.
     """
     n_bins = 1 + n_fft // 2
     n = np.arange(n_fft)[:, None]

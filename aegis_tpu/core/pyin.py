@@ -1,4 +1,4 @@
-"""pYIN probabilistic pitch tracking on TPU (JAX).
+"""pYIN probabilistic pitch tracking on the device (JAX).
 
 Line-for-line the same math as the CPU oracle ``aegis_tpu.ref.pyin_ref`` (see
 its docstring for the algorithm description and reference citations), but
@@ -10,8 +10,9 @@ expressed as fixed-shape XLA programs:
   * Probabilistic thresholding as a ``lax.fori_loop`` over the 100 thresholds
     with (T, L) vector work per step — no ragged trough lists.
   * Observation scatter-add into 0.1-semitone pitch bins.
-  * Viterbi as a ``lax.scan`` over frames with dense banded max-plus steps on
-    the VPU; backtrace is a reverse scan.
+  * Viterbi: on the GPU one launch of a banded CUDA kernel
+    (``aegis_tpu.cuda``) per batch of sequences; elsewhere a ``lax.scan``
+    over frames with dense max-plus steps and a reverse-scan backtrace.
 
 The whole thing jits into a single device program; `pyin_from_frames` is the
 jittable core so the turbo path can feed pre-framed, sharded tiles.
@@ -135,18 +136,34 @@ def observations(probs: jnp.ndarray, shifts: jnp.ndarray, sr: int,
     return obs, voiced_prob
 
 
-def viterbi_decode(obs: jnp.ndarray, voiced_prob: jnp.ndarray,
-                   log_local: jnp.ndarray, switch_prob: float) -> jnp.ndarray:
-    """Max-product decode over 2*n states; states[t] in [0, 2n)."""
+@functools.lru_cache(maxsize=None)
+def log_transition(n: int, width: int) -> np.ndarray:
+    """(n, n) float32 log of the banded pitch transition, floored at 1e-30
+    (cached, read-only)."""
+    out = np.log(local_transition(n, width) + 1e-30).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+def viterbi_inputs(obs: jnp.ndarray, voiced_prob: jnp.ndarray):
+    """Initial deltas and per-step log observations of the decode:
+    (init_v (n,), init_u (n,), log_obs_v[1:] (T-1, n), log_obs_u[1:] (T-1,))."""
     T, n = obs.shape
     eps = 1e-30
     log_obs_v = jnp.log(obs + eps)
-    log_obs_u = jnp.log((1.0 - voiced_prob[:, None]) / n + eps)
+    log_obs_u = jnp.log((1.0 - voiced_prob) / n + eps)
+    init = jnp.full((n,), np.log(1.0 / (2 * n)), jnp.float32)
+    return init + log_obs_v[0], init + log_obs_u[0], log_obs_v[1:], log_obs_u[1:]
+
+
+def viterbi_scan(init_v: jnp.ndarray, init_u: jnp.ndarray, log_obs_v: jnp.ndarray,
+                 log_obs_u: jnp.ndarray, log_local: jnp.ndarray,
+                 switch_prob: float, unroll: int = 1) -> jnp.ndarray:
+    """Dense max-product decode over 2*n states as a ``lax.scan``; states[t]
+    in [0, 2n).  Argmax ties go to the smallest source index."""
+    n = init_v.shape[0]
     log_stay = float(np.log1p(-switch_prob))
     log_switch = float(np.log(switch_prob))
-
-    init_v = jnp.full((n,), np.log(1.0 / (2 * n))) + log_obs_v[0]
-    init_u = jnp.full((n,), np.log(1.0 / (2 * n))) + log_obs_u[0]
 
     def step(carry, inputs):
         delta_v, delta_u = carry
@@ -170,7 +187,7 @@ def viterbi_decode(obs: jnp.ndarray, voiced_prob: jnp.ndarray,
         return (dv, du), (pv, pu)
 
     (dv, du), (psi_v, psi_u) = jax.lax.scan(
-        step, (init_v, init_u), (log_obs_v[1:], log_obs_u[1:])
+        step, (init_v, init_u), (log_obs_v, log_obs_u), unroll=unroll
     )
 
     last = jnp.argmax(jnp.concatenate([dv, du])).astype(jnp.int32)
@@ -181,7 +198,8 @@ def viterbi_decode(obs: jnp.ndarray, voiced_prob: jnp.ndarray,
                          pu[jnp.minimum(state - n, n - 1)])
         return prev, prev
 
-    _, earlier = jax.lax.scan(back, last, (psi_v, psi_u), reverse=True)
+    _, earlier = jax.lax.scan(back, last, (psi_v, psi_u), reverse=True,
+                              unroll=unroll)
     return jnp.concatenate([earlier, last[None]])
 
 
@@ -189,44 +207,30 @@ def viterbi_decode(obs: jnp.ndarray, voiced_prob: jnp.ndarray,
 # Entry points
 # --------------------------------------------------------------------------
 
-def _decode_states(obs: jnp.ndarray, voiced_prob: jnp.ndarray,
-                   width: int, cfg: PyinConfig) -> jnp.ndarray:
-    """Viterbi dispatch: banded Pallas kernel on TPU backends (forward pass
-    + backtrace in one VMEM-resident program), lax.scan fallback on CPU or
-    when the decode won't fit VMEM.
+def decode_states(obs: jnp.ndarray, voiced_prob: jnp.ndarray,
+                  width: int, cfg: PyinConfig) -> jnp.ndarray:
+    """Viterbi dispatch, chosen at trace time: the banded CUDA kernel
+    (``aegis_tpu.cuda``) on the GPU, the dense ``lax.scan`` elsewhere."""
+    inputs = viterbi_inputs(obs, voiced_prob)
+    if jax.default_backend() == "gpu":
+        from aegis_tpu.cuda import viterbi_decode_gpu
 
-    AEGIS_VITERBI=scan|pallas overrides — read at TRACE time: it must be
-    set before the first pyin call for a given shape/config; jit-cached
-    programs keep whichever implementation they were traced with."""
-    import os
+        return viterbi_decode_gpu(*inputs, width, cfg.switch_prob)
+    log_local = jnp.asarray(log_transition(cfg.n_pitch_bins, width))
+    return viterbi_scan(*inputs, log_local, cfg.switch_prob)
 
-    n = cfg.n_pitch_bins
-    T = obs.shape[0]
-    trans = local_transition(n, width)
-    backend = jax.default_backend()
-    want = os.environ.get("AEGIS_VITERBI", "auto")
-    from aegis_tpu.core import pyin_pallas as vp
 
-    fits = vp.viterbi_vmem_bytes(T, n, width) < 14 * 2**20
-    # build_banded_log_transition raises when the band exceeds its fixed
-    # R = N_CHUNKS*CHUNK rows (wide bands at low sr / large hop) — fall back
-    # to the lax.scan decode instead of crashing on TPU backends.
-    band_ok = 2 * width + 1 <= vp.N_CHUNKS * vp.CHUNK
-    use_pallas = (want != "scan" and fits and band_ok
-                  and (backend not in ("cpu",) or want == "pallas"))
-    if use_pallas:
-        band = jnp.asarray(vp.build_banded_log_transition(trans, width))
-        eps = 1e-30
-        log_obs_v = jnp.log(obs + eps)
-        log_obs_u = jnp.log((1.0 - voiced_prob) / n + eps)
-        return vp.viterbi_decode_pallas(
-            log_obs_v, log_obs_u, band, n, width,
-            float(np.log1p(-cfg.switch_prob)),
-            float(np.log(cfg.switch_prob)),
-            interpret=(backend == "cpu"),
-        )
-    log_local = jnp.asarray(np.log(trans + 1e-30), jnp.float32)
-    return viterbi_decode(obs, voiced_prob, log_local, cfg.switch_prob)
+def pyin_observations(frames: jnp.ndarray, sr: int,
+                      cfg: PyinConfig) -> Tuple[jnp.ndarray, jnp.ndarray]:
+    """Pitch-bin observations (T, n_bins) and voiced probability (T,) of
+    pre-extracted frames: everything of pYIN ahead of the Viterbi decode."""
+    min_p, max_p = cfg.min_period(sr), cfg.max_period(sr)
+
+    yin = cmndf_frames(frames.astype(jnp.float32), cfg.win_length, min_p, max_p)
+    shifts = parabolic_shifts(yin)
+    mask = trough_mask(yin)
+    probs = trough_probabilities(yin, mask, cfg)
+    return observations(probs, shifts, sr, min_p, cfg)
 
 
 @functools.partial(jax.jit, static_argnames=("sr", "hop_length", "cfg"))
@@ -236,16 +240,9 @@ def pyin_from_frames(frames: jnp.ndarray, sr: int, hop_length: int,
 
     Returns (f0, voiced_flag, voiced_prob); f0 is NaN on unvoiced frames.
     """
-    min_p, max_p = cfg.min_period(sr), cfg.max_period(sr)
-
-    yin = cmndf_frames(frames.astype(jnp.float32), cfg.win_length, min_p, max_p)
-    shifts = parabolic_shifts(yin)
-    mask = trough_mask(yin)
-    probs = trough_probabilities(yin, mask, cfg)
-    obs, voiced_prob = observations(probs, shifts, sr, min_p, cfg)
-
-    states = _decode_states(obs, voiced_prob,
-                            cfg.transition_width(sr, hop_length), cfg)
+    obs, voiced_prob = pyin_observations(frames, sr, cfg)
+    states = decode_states(obs, voiced_prob,
+                           cfg.transition_width(sr, hop_length), cfg)
 
     n = cfg.n_pitch_bins
     bin_idx = states % n
@@ -259,8 +256,7 @@ def extract_pyin_frames(y: jnp.ndarray, hop_length: int, cfg: PyinConfig) -> jnp
     """Centered zero-padded frames for pYIN, (T, frame_length).
 
     Delegates to dsp.frame_signal, which builds overlapping frames from
-    contiguous slices instead of a gather (a (T, 2048) row gather was the
-    single most expensive op in the fused analyze program on TPU).
+    contiguous slices instead of a gather.
     """
     from aegis_tpu.core import dsp
 

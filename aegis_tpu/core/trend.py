@@ -3,8 +3,8 @@
 Recurrent filters (EMA, Kalman, Holt-Winters, Wilder RSI) are expressed as
 **affine recurrences y[t] = a[t]*y[t-1] + b[t]** and evaluated with
 log-depth ``jax.lax.associative_scan`` — a sequential ``lax.scan`` over T
-frames costs ~T * step-latency on TPU, which dominated the fused analyze
-program; the associative form is embarrassingly parallel on the VPU.
+frames costs ~T * step-latency on the device; the associative form is
+embarrassingly parallel.
 Hold-last-value recurrences (ATR spike replacement, the Bollinger
 articulation state machine's counter) reduce to cummax-of-index + gather.
 Windowed statistics (SMA, Bollinger std, Ichimoku, stochastic) are
@@ -70,8 +70,8 @@ def _affine_scan_2x2(M: jnp.ndarray, v: jnp.ndarray,
     M: (T, 2, 2), v: (T, 2), init: (2,).  Returns states (T, 2).
     """
 
-    # precision HIGHEST: einsum contractions land on the MXU where f32
-    # inputs default to bf16 — repeated 2x2 compositions then drift ~1e-3
+    # precision HIGHEST: at default precision f32 contraction inputs may be
+    # rounded (bf16 / TF32) — repeated 2x2 compositions then drift ~1e-3
     # relative, i.e. ~0.3 Hz on a pitch trend (see savgol note)
     hp = jax.lax.Precision.HIGHEST
 
@@ -108,7 +108,7 @@ def _trailing_window(x: jnp.ndarray, w: int, include_current: bool) -> Tuple[jnp
 def sma(data: jnp.ndarray, window: int = 5) -> jnp.ndarray:
     valid = jnp.where(_isnan(data), 0.0, data)
     kernel = jnp.ones((window,)) / window
-    # full f32 precision: see savgol (TPU bf16 conv default)
+    # full f32 precision: see savgol
     out = jnp.convolve(valid, kernel, mode="same",
                        precision=jax.lax.Precision.HIGHEST)
     return jnp.where(_isnan(data), NAN, out)
@@ -333,9 +333,10 @@ def savgol(data: jnp.ndarray, window: int = 11, polyorder: int = 3) -> jnp.ndarr
     half = window // 2
     padded = jnp.pad(filled, half, mode="edge")
     kernel = jnp.asarray(_savgol_kernel(window, polyorder)[::-1].copy(), jnp.float32)
-    # precision HIGHEST: TPU convs default to bf16 inputs, whose ~1e-3
-    # relative error is ~0.3 Hz at pitch magnitudes — enough to flip
-    # rounded notes at semitone boundaries (60 s bench F1 regression)
+    # precision HIGHEST: reduced-precision conv inputs (bf16 / TF32 at
+    # default precision) have ~1e-3 relative error, which is ~0.3 Hz at
+    # pitch magnitudes — enough to flip rounded notes at semitone
+    # boundaries (60 s bench F1 regression)
     out = jnp.convolve(padded, kernel, mode="valid",
                        precision=jax.lax.Precision.HIGHEST)
     out = jnp.where(valid, out, NAN)

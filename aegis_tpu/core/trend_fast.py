@@ -2,9 +2,9 @@
 
 The live financial poll re-runs the trend stack over its incremental window
 (engine/realtime.py::_trend_incremental) and ``finalize()`` re-runs it over
-the whole session — through the oracle's Python loops that cost ~68 us per
-frame (measured round 5: a ~35 ms poll where v1 polls ~10 ms, and ~1.8 s of
-finalize on a 10-minute session).  This module is the drop-in fast path:
+the whole session — through the oracle's per-frame Python loops, which
+made the financial poll several times the v1 poll.  This module is the
+drop-in fast path:
 
 * the strictly sequential recurrences (ema, kalman, holt, the articulation
   state machine, Wilder's RSI smoothing) run in the C++ native core

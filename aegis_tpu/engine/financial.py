@@ -29,7 +29,7 @@ log = get_logger("Financial")
 
 
 class AegisFinancialEngine:
-    version = "2.0-financial-tpu"
+    version = "2.0-financial"
 
     def __init__(self, sample_rate: int = 22050, hop_length: int = 512,
                  n_fft: int = 2048, backend: str = "auto"):

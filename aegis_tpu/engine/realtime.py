@@ -14,16 +14,12 @@ one jit per (tile, halo) config) with two online adaptations:
     run_analyze_turbo's events at F1 = 1.0).
   * Bounded lookahead: a tile is analyzed only once its right halo has
     arrived, so the intrinsic latency is (tile + halo·hop + fl/2) samples
-    (`lookahead_s`).  The DEFAULT config is the measured low-latency
-    preset (24, 8): round-4 on-chip decision matrix over 10-minute
-    sessions — feed→first-event 0.78 s v1 / 0.80 s poly at 8-9×
-    realtime ingest margin and flat polls, vs 2.28 s at the old (64, 32)
-    whose only advantage (23× ingest) matters for faster-than-realtime
-    catch-up, not live capture; truth F1 1.0000 at every config
-    (VALIDATION.md "Live low-latency tile configs").  Bulk re-analysis
-    of FILES should use the offline engines (fused/turbo), which are
-    another ~30× faster still; pass tile_frames=64 for a
-    high-throughput stream when neither fits.
+    (`lookahead_s`).  The DEFAULT config is the low-latency preset
+    (24, 8): a shorter lookahead than (64, 32), whose larger tiles only
+    help faster-than-realtime catch-up, not live capture; truth F1 1.0000
+    at every config (VALIDATION.md "Live low-latency tile configs").  Bulk
+    re-analysis of FILES should use the offline engines (fused/turbo);
+    pass tile_frames=64 for a high-throughput stream when neither fits.
 
 Host memory grows only by the per-frame output rows (~40 B/frame);
 `poll_events()` re-runs the (native C++) event extraction over the
@@ -44,8 +40,7 @@ from aegis_tpu.core.analyze import _GTR_ROWS, _V1_ROWS
 # ---------------------------------------------------------------------------
 # Finalized-event horizon (VERDICT r3 #2): a live poll re-ran extraction +
 # the whole refinement chain over EVERY accumulated frame, so poll cost grew
-# linearly with session length (measured 639 ms poly / 136 ms financial at
-# 10 minutes).  Events far enough behind the newest frame can never change:
+# linearly with session length.  Events far enough behind the newest frame can never change:
 # new audio only appends frames, every extraction pass reads bounded local
 # windows, and the global scalars it consumes (track peaks, picked onsets,
 # the adaptive threshold, the detected key) are either fingerprinted or
@@ -361,8 +356,8 @@ class StreamingTranscriber:
     def _trend_full(self, f0_clean: np.ndarray) -> Dict[str, np.ndarray]:
         # the fast host twin of the oracle pass (bit-identical when the
         # native library is present, else falls back to the oracle): the
-        # oracle's Python loops cost ~68 us/frame, which made every live
-        # financial poll ~35 ms and a 10-minute finalize ~1.8 s
+        # oracle's per-frame Python loops made every live financial poll
+        # and finalize scale with that cost
         from aegis_tpu.core import trend_fast
 
         fin = trend_fast.analyze_pitch_financial(f0_clean)

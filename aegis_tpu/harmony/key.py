@@ -182,8 +182,8 @@ class HarmonicAnalyzer:
         scale_notes = set(self.get_scale_notes(key_info["key"], key_info["mode"]))
         # chord windows are disjoint [t, t+window) at multiples of the
         # window, so the per-event linear scan is a floor-division lookup
-        # (profiled round 4: the scan was 24 ms of a 10-minute live poll;
-        # round 5 vectorized the lookup itself — one masked multiply, same
+        # (the scan was a visible share of a 10-minute live poll; the
+        # lookup itself is vectorized — one masked multiply, same
         # floats: each penalized confidence is multiplied once by the
         # identical 0.8/0.5 literal)
         ws = int(window_size)

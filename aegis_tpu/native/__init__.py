@@ -1,7 +1,7 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The TPU does the compute; the host-side runtime around it is Python + this
-module's C++ cores for the per-frame host loops.  pybind11 is not in the
+The device does the compute; the host-side runtime around it is Python +
+this module's C++ cores for the per-frame host loops.  pybind11 is not in the
 image, so the build is a plain ``g++ -O3 -shared -fPIC`` into the user cache
 (keyed by a source hash) and the binding is ctypes.  Everything degrades
 gracefully: if no compiler is present or the build fails, callers fall back

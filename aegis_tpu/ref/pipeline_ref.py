@@ -2,7 +2,7 @@
 
 Used by parity tests (device-vs-oracle note-event F1 >= 0.99, BASELINE.md) and
 as the last rung of the engine's graceful-degradation ladder
-(TPU -> CPU XLA -> this NumPy path; SURVEY.md §5.3).
+(device -> CPU XLA -> this NumPy path; SURVEY.md §5.3).
 """
 
 from __future__ import annotations

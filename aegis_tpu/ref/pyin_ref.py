@@ -1,6 +1,6 @@
 """NumPy reference implementation of pYIN probabilistic pitch tracking.
 
-This is the CPU oracle for the TPU pipeline.  It implements the published
+This is the CPU oracle for the device pipeline.  It implements the published
 pYIN algorithm (Mauch & Dixon, "pYIN: A fundamental frequency estimator using
 probabilistic threshold distributions", ICASSP 2014) with the same parameter
 defaults the reference engine passes to librosa.pyin (reference:

@@ -59,7 +59,7 @@ def bollinger(data: np.ndarray, window: int = 20, num_std: float = 2.0):
 
     The per-window two-pass std runs as ONE sliding-window reduction —
     bit-identical to the per-frame ``np.std(valid)`` loop it replaces
-    (round 4; the loop was ~70 ms of every live financial poll's trend
+    (the loop was the largest part of every live financial poll's trend
     tail): NaN slots contribute EXACT zeros to the window sums, adding
     0.0 never rounds, and numpy's last-axis reduce is sequential below
     the 128-element pairwise blocksize, so the nonzero partial-sum order

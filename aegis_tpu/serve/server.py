@@ -304,7 +304,7 @@ class AegisServer:
             """Deploy/monitoring probe: backend platform, device count,
             live session count, available optional components.  Reports the
             backend ONLY if it is already initialized — a monitoring ping
-            must not trigger a multi-second remote TPU client bring-up on
+            must not trigger a multi-second device client bring-up on
             the request thread; pass probe_device=1 to force init."""
             from aegis_tpu.models.pitchnet import have_default_weights
             from aegis_tpu.synth.stems import find_demucs

@@ -115,11 +115,10 @@ def render_notes(
     normalized to 0.9 peak.
 
     The mixdown used to be ``out.at[idx].add(buffers)`` — an arbitrary
-    (N, max_len)-element scatter-add, which serializes on TPU and dominated
-    the whole auto-match sweep (~3 s where the rest of the math is ~100 ms).
-    Instead: shift each note into block alignment with ONE contiguous
-    dynamic-slice (a note spans at most two max_len-sized blocks), then
-    accumulate blocks with a one-hot matmul on the MXU.
+    (N, max_len)-element scatter-add with colliding indices.  Instead:
+    shift each note into block alignment with ONE contiguous dynamic-slice
+    (a note spans at most two max_len-sized blocks), then accumulate
+    blocks with a one-hot matmul.
     """
     buffers = jax.vmap(
         lambda f, n, v, a, d, s, r, w: _render_note(f, n, v, a, d, s, r, w,

@@ -9,7 +9,7 @@ $AEGIS_DEMUCS_BIN; retraining/porting the model is out of scope (SURVEY.md
 Beyond-reference: when Demucs is absent, ``method="auto"`` (the default)
 degrades to on-device harmonic/percussive separation (core/hpss.py) instead
 of silently returning the unseparated mix — drums and pick transients are
-stripped on the chip in milliseconds, which is exactly what the downstream
+stripped on the device, which is exactly what the downstream
 monophonic pitch tracker wants.  ``method="hpss"`` forces it.
 """
 

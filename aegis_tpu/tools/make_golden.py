@@ -1,7 +1,7 @@
 """Generate librosa golden fixtures for the oracle-pinning tests.
 
 The driver's correctness gate is "note-event F1 >= 0.99 vs the CPU *librosa*
-reference" (BASELINE.md), but librosa is NOT installable in the TPU image
+reference" (BASELINE.md), but librosa is NOT installed in the test image
 (zero egress, no wheel).  This script is the bridge: run it in ANY
 environment where librosa is installed —
 

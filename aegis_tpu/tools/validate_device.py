@@ -1,4 +1,4 @@
-"""On-device correctness validation: TPU pipeline vs the CPU oracle.
+"""On-device correctness validation: the device pipeline vs the CPU oracle.
 
 Runs both engines (v1 + financial) with backend="device" and backend="ref"
 on the gating clips and reports note-event F1 (the driver's correctness
@@ -13,10 +13,9 @@ otherwise):
                                --quick skips it — it needs ~4 min of CPU
                                oracle time)
 
-Measured on the real chip 2026-08-16 (seconds-based events, default
-50 ms / 0.5-semitone tolerances): all four clips F1 = 1.0000 for v1 AND
-financial after the per-track int16 scale fix (the round-1 borderline
-0.9912 on the 60 s track was batch-global quantization, since removed).
+Seconds-based events, default 50 ms / 0.5-semitone tolerances.  On the
+GPU, ``chip_smoke.py`` phase 3 runs this validation; its results are in
+CHANGES.md.
 
 Non-gating extra fields: ``neural_f1`` (pitch_backend="neural" agreement
 with the pyin oracle) and, on clips whose generator supplies ground
@@ -28,9 +27,8 @@ FOUR truth clips with exact event counts (152/152 on the 60 s bench
 track) — up from 0.9034/0.7500 under the reference's merge/lag
 semantics (use_onsets=False), which fused repeated same-pitch plucks
 (152 -> 138 events) and inherited pyin's up-to-91 ms post-rake pitch
-lock.  Measured on XLA-CPU and the real chip 2026-08-17 (identical
-numbers; full table and the per-rule measurement story in
-VALIDATION.md).  The GATE remains device-vs-oracle parity
+lock.  Measured on XLA-CPU (full table and the per-rule measurement
+story in VALIDATION.md).  The GATE remains device-vs-oracle parity
 (v1/financial), which is exact.
 
 Usage:  python -m aegis_tpu.tools.validate_device [--quick]
@@ -137,7 +135,7 @@ def validate(threshold: float = 0.99, include_bench: bool = True,
     # polyphonic engine vs generator ground truth (GATING: the poly
     # pipeline has no librosa analogue — the reference is monophonic — so
     # chord-progression truth IS its correctness contract; the salience
-    # peel runs Precision.HIGHEST matmuls specifically so on-chip picks
+    # peel runs Precision.HIGHEST matmuls specifically so on-device picks
     # match the CPU-measured 1.0 seeds, tests/test_poly_truth.py)
     from aegis_tpu.engine.poly import AegisPolyEngine
     from aegis_tpu.tools.signal_gen import generate_chord_progression

@@ -5,7 +5,7 @@
   auto_matcher.py:51-85; the batched sweep variant lives in
   verify.auto_match._score_sweep).  Chroma is CQT-folded like the reference's
   librosa.feature.chroma_cqt: |STFT|^2 projected onto the log-frequency
-  pseudo-CQT filterbank, folded into 12 pitch classes — two MXU matmuls
+  pseudo-CQT filterbank, folded into 12 pitch classes — two matmuls
   (core.filters.cqt_filterbank / chroma_fold).
 * ``note_slice_similarity`` — batched per-note similarity: 0.5 * RMS-envelope
   Pearson correlation + 0.3 * spectral-centroid similarity + 0.2 * zero-

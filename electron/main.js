@@ -49,7 +49,7 @@ async function createWindow() {
   const win = new BrowserWindow({
     width: 1280,
     height: 860,
-    title: "Aegis TPU Studio",
+    title: "Aegis Studio",
     backgroundColor: "#0e1016",
   });
   win.loadURL(`http://127.0.0.1:${PORT}/`);

@@ -276,8 +276,8 @@ def test_pcm4_transport_event_parity():
 def test_validate_device_gate():
     """The driver's F1 gate (tools.validate_device) must pass on every
     gating clip — incl. sr=44100 — on this backend (CPU here; the tool also
-    runs on the real chip).  VERDICT r1 #3: wired into the suite so a drift
-    below 0.99 fails CI, not just the on-chip tool."""
+    runs on the GPU, chip_smoke.py phase 3).  VERDICT r1 #3: wired into the
+    suite so a drift below 0.99 fails CI, not just the on-device tool."""
     from aegis_tpu.tools.validate_device import validate
 
     res = validate(include_bench=False, quiet=True)
@@ -315,7 +315,7 @@ def test_bench_track_truth():
 def test_default_pipeline_truth_f1():
     """The onset-refined default pipeline hits ground truth exactly on the
     truth clips (measured 1.0000 on all four incl. the 60 s bench track on
-    the real chip; the two short clips gate here).  use_onsets=False
+    the GPU; the two short clips gate here).  use_onsets=False
     (the reference's merge/lag semantics) measures 0.75 on the scale
     track — this test pins the improvement."""
     from aegis_tpu.tools.signal_gen import generate_bench_track

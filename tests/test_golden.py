@@ -1,7 +1,7 @@
 """Golden-fixture tests: pin the CPU oracle to REAL librosa outputs.
 
 Fixtures are produced by ``python -m aegis_tpu.tools.make_golden`` in any
-environment with librosa installed (it is not installable in the TPU image —
+environment with librosa installed (it is not installed in the test image —
 zero egress).  While absent these tests SKIP loudly; once committed they make
 the F1-vs-librosa gate non-self-referential: ``aegis_tpu.ref`` is compared
 against actual librosa arrays, and the device kernels are parity-tested
@@ -21,7 +21,7 @@ from aegis_tpu.tools.signal_gen import generate_test_track, two_tone
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 SKIP_MSG = ("golden fixtures absent — generate with "
             "`python -m aegis_tpu.tools.make_golden` in a librosa "
-            "environment (librosa is not installable in the TPU image)")
+            "environment (librosa is not installed in the test image)")
 
 _CLIPS = {
     "two_tone_22050": (22050, lambda: two_tone(sr=22050)),

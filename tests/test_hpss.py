@@ -52,7 +52,7 @@ def test_hpss_wrapper_exact_at_any_length():
     yq = y16.astype(np.float32) * s
     exact = np.asarray(hpss_program(jnp.asarray(yq), length=len(y)))
     # not bit-identical: the masked on-device window-sum accumulates in a
-    # different f32 order than the host-precomputed one (~1e-5 on TPU)
+    # different f32 order than the host-precomputed one (~1e-5 on the device)
     assert np.abs(yh - exact[0]).max() < 5e-5
     assert np.abs(yp - exact[1]).max() < 5e-5
     # and the tail agrees with the float64 oracle to transport precision

@@ -114,6 +114,38 @@ def test_pitch_target_peak_at_true_bin():
     assert abs(tgt[0].sum() - 1.0) < 1e-3
 
 
+def test_forward_matches_numpy_on_committed_checkpoint():
+    """The plain-jnp MLP reads the committed Dense_k/{kernel,bias} tree
+    unchanged and computes what a float64 NumPy forward pass does."""
+    params = pn.load_params()
+    feats = np.random.default_rng(0).standard_normal(
+        (16, pn.N_RFFT)).astype(np.float32)
+    logits, vlogit = pn.apply_model(params, jnp.asarray(feats))
+
+    def dense(k, x):
+        d = params[f"Dense_{k}"]
+        return x @ d["kernel"].astype(np.float64) + d["bias"]
+
+    x = feats.astype(np.float64)
+    for k in range(len(pn.HIDDEN)):
+        x = np.maximum(dense(k, x), 0.0)
+    np.testing.assert_allclose(np.asarray(logits), dense(len(pn.HIDDEN), x),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(np.asarray(vlogit),
+                               dense(len(pn.HIDDEN) + 1, x)[:, 0],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_init_params_tree_matches_checkpoint():
+    fresh = pn.init_params(0)
+    saved = pn.load_params()
+    assert fresh.keys() == saved.keys()
+    for k in saved:
+        for leaf in ("kernel", "bias"):
+            assert fresh[k][leaf].shape == saved[k][leaf].shape
+        assert not np.asarray(fresh[k]["bias"]).any()
+
+
 # ------------------------------------------------------------ learning loop
 
 
@@ -511,7 +543,7 @@ def test_neural_44k_canonical_events_match_pyin():
 @needs_weights
 def test_neural_robust_to_effects():
     """Neural-vs-pYIN event agreement survives the framework's own effect
-    chain (measured F1 1.0 on every preset on-chip; the two hardest
+    chain (measured F1 1.0 on every preset on the device; the two hardest
     presets gate here)."""
     from aegis_tpu.engine.engine import AegisEngine
     from aegis_tpu.synth.effects import apply_effect_chain

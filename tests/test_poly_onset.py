@@ -362,29 +362,3 @@ def test_cqt_filterbank_no_dead_bins():
     fs2_bin = int(round(12 * np.log2(92.5 / 32.70319566257483)))
     col = int(np.argmin(np.abs(fft_freqs - 92.5)))
     assert fb[fs2_bin, max(0, col - 1): col + 2].sum() > 0
-
-
-def test_viterbi_wide_band_falls_back_to_scan(monkeypatch):
-    """ADVICE r1: a transition band wider than the Pallas kernel's fixed 256
-    rows (low sr / big hop) must fall back to the lax.scan decode instead of
-    raising inside build_banded_log_transition."""
-    import jax.numpy as jnp
-
-    from aegis_tpu.config import PyinConfig
-    from aegis_tpu.core import pyin_pallas as vp
-    from aegis_tpu.core.pyin import _decode_states
-
-    cfg = PyinConfig()
-    # sr=22050, hop=2048 -> width well past the band capacity
-    width = cfg.transition_width(22050, 2048)
-    assert 2 * width + 1 > vp.N_CHUNKS * vp.CHUNK  # premise of the regression
-    with pytest.raises(ValueError):
-        from aegis_tpu.ref.pyin_ref import local_transition
-
-        vp.build_banded_log_transition(local_transition(cfg.n_pitch_bins, width), width)
-
-    monkeypatch.setenv("AEGIS_VITERBI", "pallas")  # force-eligible path
-    T, n = 8, cfg.n_pitch_bins
-    obs = jnp.zeros((T, n), jnp.float32).at[:, 100].set(0.5)
-    states = np.asarray(_decode_states(obs, jnp.full((T,), 0.5), width, cfg))
-    assert states.shape == (T,)  # decoded via scan, no crash

@@ -51,84 +51,3 @@ def test_pyin_noise_low_confidence(rng):
     assert vp.mean() < 0.55
 
 
-def test_viterbi_pallas_matches_scan():
-    """Banded Pallas Viterbi (interpret mode) vs the lax.scan decode."""
-    import jax.numpy as jnp
-
-    from aegis_tpu.config import PyinConfig
-    from aegis_tpu.core import pyin_pallas as vp
-    from aegis_tpu.core.pyin import viterbi_decode
-    from aegis_tpu.ref.pyin_ref import local_transition
-
-    cfg = PyinConfig()
-    n = cfg.n_pitch_bins
-    width = cfg.transition_width(22050, 512)
-    T = 40
-    rng = np.random.default_rng(11)
-    # realistic observations: sparse trough mass around a wandering pitch
-    obs = np.zeros((T, n), np.float32)
-    center = 200
-    for t in range(T):
-        center = int(np.clip(center + rng.integers(-8, 9), 5, n - 6))
-        for d in (-2, -1, 0, 1, 2):
-            obs[t, center + d] = rng.random() * 0.4
-        # occasional huge jump to exercise the out-of-band path
-        if t % 13 == 7:
-            obs[t, (center + 230) % n] = 0.9
-    voiced_prob = np.clip(obs.sum(axis=1), 0.0, 1.0).astype(np.float32)
-
-    trans = local_transition(n, width)
-    log_local = jnp.asarray(np.log(trans + 1e-30), jnp.float32)
-    ref_states = np.asarray(viterbi_decode(
-        jnp.asarray(obs), jnp.asarray(voiced_prob), log_local,
-        cfg.switch_prob))
-
-    band = jnp.asarray(vp.build_banded_log_transition(trans, width))
-    eps = 1e-30
-    got = np.asarray(vp.viterbi_decode_pallas(
-        jnp.log(jnp.asarray(obs) + eps),
-        jnp.log((1.0 - jnp.asarray(voiced_prob)) / n + eps),
-        band, n, width,
-        float(np.log1p(-cfg.switch_prob)), float(np.log(cfg.switch_prob)),
-        interpret=True))
-
-    assert got.shape == ref_states.shape
-    assert (got == ref_states).mean() > 0.99, (
-        f"state mismatch {np.mean(got != ref_states):.3f}")
-
-
-def test_viterbi_pallas_44k_band():
-    """Same parity at sr=44100, where the transition half-width differs
-    (51 vs 101 at 22050) — the server's default sample rate."""
-    import jax.numpy as jnp
-
-    from aegis_tpu.config import PyinConfig
-    from aegis_tpu.core import pyin_pallas as vp
-    from aegis_tpu.core.pyin import viterbi_decode
-    from aegis_tpu.ref.pyin_ref import local_transition
-
-    cfg = PyinConfig()
-    n = cfg.n_pitch_bins
-    width = cfg.transition_width(44100, 512)
-    T = 32
-    rng = np.random.default_rng(21)
-    obs = np.zeros((T, n), np.float32)
-    center = 150
-    for t in range(T):
-        center = int(np.clip(center + rng.integers(-4, 5), 5, n - 6))
-        obs[t, center] = rng.random() * 0.5
-    vp_prob = np.clip(obs.sum(axis=1), 0.0, 1.0).astype(np.float32)
-
-    trans = local_transition(n, width)
-    ref = np.asarray(viterbi_decode(
-        jnp.asarray(obs), jnp.asarray(vp_prob),
-        jnp.asarray(np.log(trans + 1e-30), jnp.float32), cfg.switch_prob))
-    band = jnp.asarray(vp.build_banded_log_transition(trans, width))
-    eps = 1e-30
-    got = np.asarray(vp.viterbi_decode_pallas(
-        jnp.log(jnp.asarray(obs) + eps),
-        jnp.log((1.0 - jnp.asarray(vp_prob)) / n + eps),
-        band, n, width,
-        float(np.log1p(-cfg.switch_prob)), float(np.log(cfg.switch_prob)),
-        interpret=True))
-    assert (got == ref).mean() > 0.99

@@ -113,7 +113,7 @@ def test_streaming_poly_matches_offline():
 
 
 def test_low_latency_configs():
-    """The documented low-latency presets (VALIDATION.md round 3: on-chip
+    """The documented low-latency presets (VALIDATION.md round 3: the device
     sweep measured truth F1 1.0000 at every config) hold event accuracy
     on the virtual mesh too: smaller tiles change seam positions, not
     event content."""

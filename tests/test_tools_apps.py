@@ -133,58 +133,3 @@ def test_live_monitor_stream_helpers():
         assert steps and steps[-1][0] == len(y) / 22050
         final = rt.finalize()
         assert {e["note"] for e in final} >= {55, 62}, (kind, final)
-
-
-def test_readme_bench_table_traceable():
-    """README's headline table is GENERATED from a committed bench
-    artifact (VERDICT r3 weak #3 — no fast-phase numbers in print): the
-    cited artifact exists and re-rendering it reproduces the table
-    verbatim."""
-    import os
-    import re
-
-    from aegis_tpu.tools.bench_table import latest_artifact, render_table
-
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    src = open(os.path.join(repo, "README.md")).read()
-    m = re.search(r"<!-- BENCH_TABLE_START.*?BENCH_TABLE_END -->", src,
-                  re.S)
-    assert m, "README.md lost its BENCH_TABLE markers"
-    cited = re.search(r"from (BENCH_r\d+\.json)", m.group(0)).group(1)
-    path = os.path.join(repo, cited)
-    assert os.path.exists(path), f"README cites uncommitted {cited}"
-    latest, skipped = latest_artifact(repo)
-    assert os.path.basename(latest) == cited, \
-        f"README cites {cited} but the latest on-chip artifact is {latest}"
-    assert m.group(0) == render_table(path, skipped), \
-        "README table out of sync — run python -m aegis_tpu.tools.bench_table --write"
-
-
-def test_bench_table_skips_non_tpu_artifacts(tmp_path):
-    """VERDICT r4 #3: a newer cpu_fallback artifact (e.g. the round-4
-    flap capture) must never become the cited headline — latest_artifact
-    skips non-TPU records and declares the skip in the caption."""
-    import json
-
-    from aegis_tpu.tools.bench_table import latest_artifact, render_table
-
-    (tmp_path / "BENCH_r01.json").write_text(json.dumps(
-        {"metric": "realtime_factor", "value": 500.0, "unit": "x_realtime",
-         "vs_baseline": 104.2, "device": "tpu"}))
-    (tmp_path / "BENCH_r02.json").write_text(json.dumps(
-        {"metric": "realtime_factor", "value": 8.7, "unit": "x_realtime",
-         "vs_baseline": 1.81, "device": "cpu_fallback"}))
-    path, skipped = latest_artifact(str(tmp_path))
-    assert path.endswith("BENCH_r01.json")
-    assert skipped == ["BENCH_r02.json"]
-    table = render_table(path, skipped)
-    assert "500" in table and "8.7" not in table
-    assert "BENCH_r02.json" in table  # the skip is declared in the caption
-
-    # all artifacts non-TPU -> refuse rather than print CPU numbers
-    (tmp_path / "BENCH_r01.json").write_text(json.dumps(
-        {"metric": "realtime_factor", "value": 9.0, "unit": "x_realtime",
-         "vs_baseline": 1.9, "device": "cpu_fallback"}))
-    import pytest
-    with pytest.raises(SystemExit, match="no on-chip"):
-        latest_artifact(str(tmp_path))
